@@ -24,7 +24,7 @@ def run_main(module, argv, monkeypatch):
 
 
 def test_compress_decompress_cli(frame_bin, tmp_path, monkeypatch):
-    from rpcc_tpu.cli import compress, decompress
+    from rpcc.cli import compress, decompress
 
     out = str(tmp_path / "f.rpcc")
     rec = str(tmp_path / "rec.bin")
@@ -61,7 +61,7 @@ def test_compress_decompress_cli(frame_bin, tmp_path, monkeypatch):
 
 
 def test_self_describing_cli(frame_bin, tmp_path, monkeypatch):
-    from rpcc_tpu.cli import compress, decompress
+    from rpcc.cli import compress, decompress
 
     out = str(tmp_path / "sd.rpcc")
     rec = str(tmp_path / "sd.bin")
@@ -79,7 +79,7 @@ def test_self_describing_cli(frame_bin, tmp_path, monkeypatch):
 
 
 def test_datalist_cli_roundtrip(frame_bin, tmp_path, monkeypatch):
-    from rpcc_tpu.cli import compress_datalist, decompress_datalist
+    from rpcc.cli import compress_datalist, decompress_datalist
 
     datalist = tmp_path / "list.txt"
     datalist.write_text(frame_bin + "\n")
@@ -129,7 +129,7 @@ def test_datalist_eval_reports_chamfer(frame_bin, tmp_path, monkeypatch, capsys)
     """--output --eval prints per-frame depth error (mean+max) + chamfer +
     F1 + p2p/p2plane PSNR and the per-frame host stage timers (reference
     tools/compress_datalist.py:149-200 parity)."""
-    from rpcc_tpu.cli import compress_datalist
+    from rpcc.cli import compress_datalist
 
     datalist = tmp_path / "list.txt"
     datalist.write_text(frame_bin + "\n")
@@ -151,7 +151,7 @@ def test_datalist_eval_reports_chamfer(frame_bin, tmp_path, monkeypatch, capsys)
 def test_csv_lidar_cli_roundtrip(tmp_path, monkeypatch):
     """Uneven-CSV vertical channels (32E) through the full CLI path:
     host projection (nearest-angle rows) -> encode -> decode."""
-    from rpcc_tpu.cli import compress, decompress
+    from rpcc.cli import compress, decompress
     from tests.test_roundtrip import synth_scene
 
     pc = synth_scene(seed=11)
@@ -161,7 +161,7 @@ def test_csv_lidar_cli_roundtrip(tmp_path, monkeypatch):
     ).tofile(frame)
     out = str(tmp_path / "f32e.rpcc")
     rec = str(tmp_path / "f32e_rec.bin")
-    import rpcc_tpu.data as _d
+    import rpcc.data as _d
     import os
 
     csv = os.path.join(
@@ -187,7 +187,7 @@ def test_csv_lidar_cli_roundtrip(tmp_path, monkeypatch):
 
 
 def test_datalist_keep_going_with_bad_file(frame_bin, tmp_path, monkeypatch, capsys):
-    from rpcc_tpu.cli import compress_datalist
+    from rpcc.cli import compress_datalist
 
     datalist = tmp_path / "list.txt"
     datalist.write_text(frame_bin + "\n" + str(tmp_path / "missing.bin") + "\n")
@@ -215,7 +215,7 @@ def test_datalist_keep_going_with_bad_file(frame_bin, tmp_path, monkeypatch, cap
 def test_output_path_for_extension_substring_in_dir(tmp_path):
     """Only the trailing extension is replaced (fixes the reference's
     tools/compress_datalist.py:136-141 replace-everywhere bug)."""
-    from rpcc_tpu.cli.compress_datalist import output_path_for
+    from rpcc.cli.compress_datalist import output_path_for
 
     out = output_path_for("/data/bin/seq.bin/000001.bin", str(tmp_path), "rpcc")
     assert out == str(tmp_path / "data/bin/seq.bin/000001.rpcc")
@@ -229,7 +229,7 @@ def test_mirror_path_cannot_escape_output_dir(tmp_path):
     never let the mirrored output path escape --output_dir."""
     import os
 
-    from rpcc_tpu.cli.compress_datalist import _mirror_path
+    from rpcc.cli.compress_datalist import _mirror_path
 
     base = str(tmp_path / "out")
     for entry in (
@@ -249,7 +249,7 @@ def test_truncated_ply_pcd_headers_raise(tmp_path):
     forever at EOF — one bad file would otherwise hang a datalist run."""
     import pytest
 
-    from rpcc_tpu.data.pointcloud_io import _read_pcd, _read_ply
+    from rpcc.data.pointcloud_io import _read_pcd, _read_ply
 
     bad_ply = tmp_path / "bad.ply"
     bad_ply.write_bytes(b"ply\nformat binary_little_endian 1.0\nelement vertex 3\n")

@@ -2,13 +2,13 @@
 
 import numpy as np
 
-from rpcc_tpu.codec.contour2d import (
+from rpcc.codec.contour2d import (
     compress_plane_idx_map,
     extract_contour_double_direction,
     recover_map_double_direction,
 )
-from rpcc_tpu.codec.entropy import BasicCompressor
-from rpcc_tpu.metrics import calc_chamfer_distance, calc_point_to_point_plane_psnr
+from rpcc.codec.entropy import BasicCompressor
+from rpcc.metrics import calc_chamfer_distance, calc_point_to_point_plane_psnr
 
 
 def test_double_direction_roundtrip():
@@ -75,7 +75,7 @@ def test_psnr_identical_is_infinite_energy_ratio():
 
 
 def test_self_describing_header_roundtrip():
-    from rpcc_tpu.codec.bitstream import pack_header, unpack_header
+    from rpcc.codec.bitstream import pack_header, unpack_header
 
     head_bytes = pack_header(False, 0.03, "FPS", 64, "plane", "rans", "Velodyne32E")
     payload = b"\x12\x34rest-of-stream"

@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from rpcc_tpu.config import CodecConfig
-from rpcc_tpu.models.pipeline import RPCCCodec, pad_points
-from rpcc_tpu.ops.projection import build_transform_planes, project_points
-from rpcc_tpu.ops.segment import segment_range_image
+from rpcc.config import CodecConfig
+from rpcc.models.pipeline import RPCCCodec, pad_points
+from rpcc.ops.projection import build_transform_planes, project_points
+from rpcc.ops.segment import segment_range_image
 from tests.test_roundtrip import SMALL, synth_scene
 
 

@@ -8,12 +8,12 @@ wire data to the numpy fallback.
 
 import numpy as np
 
-from rpcc_tpu.config import CodecConfig
-from rpcc_tpu.ops.projection import (
+from rpcc.config import CodecConfig
+from rpcc.ops.projection import (
     project_points_host_d8,
     project_points_host_u16,
 )
-from rpcc_tpu.parallel import BatchEngine
+from rpcc.parallel import BatchEngine
 
 from tests.test_roundtrip import SMALL, synth_scene
 
@@ -128,7 +128,7 @@ def test_d8_downlink_overflow_falls_back_lossless():
 def test_d8_reconstruct_native_and_numpy_paths(monkeypatch):
     """d8_reconstruct_batch (native single pass and numpy fallback) inverts
     the wire code to the exact q * delta floats."""
-    from rpcc_tpu.models.host_decoder import d8_reconstruct_batch
+    from rpcc.models.host_decoder import d8_reconstruct_batch
 
     rng = np.random.default_rng(11)
     B, H, W = 3, 8, 64
@@ -160,7 +160,7 @@ def test_d8_reconstruct_native_and_numpy_paths(monkeypatch):
     out = d8_reconstruct_batch(d8, pd, val, n_exc, delta)
     assert np.array_equal(out, expected)
     # force the numpy fallback branch and require identical bytes
-    import rpcc_tpu.codec.lz4block as lz4block
+    import rpcc.codec.lz4block as lz4block
 
     monkeypatch.setattr(lz4block, "native_lib", lambda: None)
     out_np = d8_reconstruct_batch(d8, pd, val, n_exc, delta)
@@ -172,8 +172,8 @@ def test_decode_downlink_clamps_negative_reconstruction():
     < step/2 plus quantization error) must clamp to q=0 on the u16 decode
     downlink — an unclamped f32->u16 convert of a negative wrapped to a
     near-max-range spike point after host rescaling."""
-    from rpcc_tpu.models.decoder import make_batch_decoder
-    from rpcc_tpu.models.encoder import num_model_rows
+    from rpcc.models.decoder import make_batch_decoder
+    from rpcc.models.encoder import num_model_rows
 
     cfg = CodecConfig(cluster_num=16, transfer_precision="u16")
     hw = SMALL.height * SMALL.width
@@ -199,7 +199,7 @@ def test_single_frame_codec_matches_engine_content_u16():
     as the BatchEngine for reduced transfer configs — previously it
     silently ignored transfer_precision and emitted different bitstream
     content for the identical config + cloud + seed."""
-    from rpcc_tpu.models.pipeline import RPCCCodec
+    from rpcc.models.pipeline import RPCCCodec
 
     # device_entropy=False: the comparison needs the engine's host-visible
     # residual/contour fields (the device-entropy path never downloads them)

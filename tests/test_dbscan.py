@@ -14,9 +14,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from rpcc_tpu.config import CodecConfig
-from rpcc_tpu.models.pipeline import RPCCCodec
-from rpcc_tpu.ops.dbscan import FIRST_CLUSTER_ID, NOISE_ID, dbscan_range_image
+from rpcc.config import CodecConfig
+from rpcc.models.pipeline import RPCCCodec
+from rpcc.ops.dbscan import FIRST_CLUSTER_ID, NOISE_ID, dbscan_range_image
 
 from tests.test_roundtrip import SMALL, synth_scene
 
@@ -168,3 +168,20 @@ def test_dbscan_roundtrip():
     err = np.abs(ri_rec - ri)
     assert err.max() <= cfg.step + 1e-5
     assert (ri_rec[ri == 0] == 0).all()
+
+
+def test_dispatch_stays_jnp_on_cpu():
+    """dbscan_range_image is plain jnp on every backend: a 4x16 block of
+    eps-connected pixels is one cluster with the first cluster id, and every
+    inactive pixel stays 0."""
+    H, W = 8, 32
+    pc = np.zeros((H, W, 3), np.float32)
+    active = np.zeros((H, W), bool)
+    for r in range(2, 6):
+        for c in range(4, 20):
+            pc[r, c] = [0.2 * c, 10.0, 0.3 * r]
+            active[r, c] = True
+    planes = jnp.asarray(np.transpose(pc, (2, 0, 1)).copy())
+    seg = np.asarray(dbscan_range_image(planes, jnp.asarray(active), 1.5, 8))
+    np.testing.assert_array_equal(seg[active], FIRST_CLUSTER_ID)
+    np.testing.assert_array_equal(seg[~active], 0)

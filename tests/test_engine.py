@@ -3,8 +3,8 @@
 import numpy as np
 import jax
 
-from rpcc_tpu.config import CodecConfig
-from rpcc_tpu.parallel import BatchEngine, data_mesh
+from rpcc.config import CodecConfig
+from rpcc.parallel import BatchEngine, data_mesh
 
 from tests.test_roundtrip import SMALL, synth_scene
 
@@ -40,7 +40,7 @@ def test_engine_sharded_roundtrip_over_mesh():
 
 
 def test_engine_mesh_blobs_byte_identical_to_single_device():
-    """THE multi-chip correctness property this rig can prove (SURVEY §2.3):
+    """THE multi-chip correctness property a CPU run can prove (SURVEY §2.3):
     the same frames encoded on an 8-device mesh produce byte-identical
     .rpcc blobs to a 1-device (meshless) engine run, under the flagship
     default config (m8 transfer + device entropy) — and the native host
@@ -57,7 +57,7 @@ def test_engine_mesh_blobs_byte_identical_to_single_device():
         "mesh-sharded encode must be byte-identical to the single-device run"
     )
 
-    from rpcc_tpu.models.host_decoder import HostDecoder
+    from rpcc.models.host_decoder import HostDecoder
 
     hd = HostDecoder(SMALL, cfg)
     ris_mesh = hd.decode_blobs(blobs_mesh)
@@ -191,7 +191,7 @@ def test_engine_i8_transfer_exceptions_and_fallback():
     """The i8 transfer view of the residual stream must reconstruct the i16
     stream exactly — both through the exception list (few |q|>127) and the
     full-download fallback (exc_count > EXC_CAP on noise-like content)."""
-    from rpcc_tpu.models.encoder import EXC_CAP
+    from rpcc.models.encoder import EXC_CAP
 
     # f32/host-entropy: this test pokes the i8 residual-stream DOWNLINK view
     # (stage_downloads' stream_dev), which the device-entropy path replaces
@@ -247,8 +247,8 @@ def test_ragged_geometry_m8_engine_falls_back_to_d8_downlink():
     """A geometry whose H*W is not a multiple of 8 cannot build the packed
     m8 downlink in-graph (pack_bits_msb packs whole bytes) — the engine
     must auto-select the d8 row-delta downlink and still roundtrip; forcing
-    m8_down on an f32 engine must fail at construction (ADVICE r3)."""
-    from rpcc_tpu.config import LidarConfig
+    m8_down on an f32 engine must fail at construction."""
+    from rpcc.config import LidarConfig
 
     ragged = LidarConfig(
         name="ragged", horizontal_fov_deg=360.0,
@@ -306,8 +306,8 @@ def test_decode_uplink_u8_and_u16_fallback_agree():
         assert np.abs(ris_u8[i] - ri_enc[i]).max() <= bound
 
     # corrupt sequence: one run id >= 256 forces the exact u16 view
-    from rpcc_tpu.codec.bitstream import pack_bitstream
-    from rpcc_tpu.models.encoder import num_model_rows
+    from rpcc.codec.bitstream import pack_bitstream
+    from rpcc.models.encoder import num_model_rows
 
     hw = SMALL.height * SMALL.width
     bits = np.zeros(hw, np.uint8)
@@ -325,7 +325,7 @@ def test_decode_uplink_u8_and_u16_fallback_agree():
     ris_c, _ = engine._materialize_ris(*engine._dispatch_decode(prep_c))
     # id 300 >= M and id 1 both decode to r = 0 — the whole frame is empty,
     # exactly like the host decoder's rule
-    from rpcc_tpu.models.host_decoder import HostDecoder
+    from rpcc.models.host_decoder import HostDecoder
 
     hd = HostDecoder(SMALL, cfg)
     ri_host = hd.reconstruct(
@@ -406,7 +406,7 @@ def test_prepare_decode_fused_i8_matches_rebuild_path():
     rans_delta_finalize_frames_i8 writing the wire view in place) must be
     byte-identical to the old materialize-i16-then-rescan rebuild, on
     content WITH exceptions (|q| > 127 residuals)."""
-    from rpcc_tpu.codec import rans_codec
+    from rpcc.codec import rans_codec
 
     cfg = CodecConfig(cluster_num=16)
     engine = BatchEngine(SMALL, cfg, batch_size=4, workers=2)

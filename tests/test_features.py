@@ -4,7 +4,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from rpcc_tpu.ops.features import (
+from rpcc.ops.features import (
     extract_features_with_segment,
     salience_levels,
 )

@@ -9,8 +9,8 @@ byte-identical streams across repeated runs.
 import numpy as np
 import pytest
 
-from rpcc_tpu.config import CodecConfig, LidarConfig
-from rpcc_tpu.models.pipeline import RPCCCodec
+from rpcc.config import CodecConfig, LidarConfig
+from rpcc.models.pipeline import RPCCCodec
 
 LIDAR = LidarConfig(
     name="fuzz16",
@@ -108,9 +108,9 @@ def test_host_decoder_survives_mutated_bitstreams():
     exception — never crash the native layer (wire-derived lengths drive
     raw C walks; the guards this pins were added after confirmed heap-OOB
     PoCs)."""
-    from rpcc_tpu.config import CodecConfig
-    from rpcc_tpu.models.host_decoder import HostDecoder
-    from rpcc_tpu.parallel import BatchEngine
+    from rpcc.config import CodecConfig
+    from rpcc.models.host_decoder import HostDecoder
+    from rpcc.parallel import BatchEngine
     from tests.test_roundtrip import SMALL, synth_scene
 
     cfg = CodecConfig(cluster_num=16)
@@ -153,8 +153,8 @@ def test_engine_decoder_survives_mutated_bitstreams():
     the fixed-shape graph decodes to SOME finite range image (the graph
     itself cannot crash on data).  60 mutations across the same five
     classes as the host fuzz."""
-    from rpcc_tpu.config import CodecConfig
-    from rpcc_tpu.parallel import BatchEngine
+    from rpcc.config import CodecConfig
+    from rpcc.parallel import BatchEngine
     from tests.test_roundtrip import SMALL, synth_scene
 
     cfg = CodecConfig(cluster_num=16)

@@ -1,85 +1,57 @@
-"""Golden determinism tests on the real KITTI example frame (CPU backend).
+"""Golden determinism tests on the seeded 64E frame (CPU backend).
 
 Locks the encoder's observable behavior: bitstream byte-determinism across
 runs, the bpp operating point staying in the expected band, and decode being
 an exact inverse.  (Absolute bpp can move when the algorithm legitimately
-changes — the band is wide; the determinism checks are strict.)
+changes — the band is wide; the determinism checks are strict.)  The frame
+is ``synthetic_frames(Velodyne64E, 1, seed=0)[0]``: a ray-cast urban scene on
+the sensor's own 64 x 2000 grid, generated in-process.
 """
 
 import hashlib
-import os
 
 import numpy as np
 import pytest
 
-from rpcc_tpu.config import CodecConfig, LidarConfig
-from rpcc_tpu.data import __lidar_cfg__
-from rpcc_tpu.models.pipeline import RPCCCodec
-
-EXAMPLE = "/root/reference/assets/example_data/example.bin"
-
-pytestmark = pytest.mark.skipif(
-    not os.path.exists(EXAMPLE), reason="example frame not available"
-)
+from rpcc.config import CodecConfig, LidarConfig
+from rpcc.data import __lidar_cfg__
+from rpcc.models.pipeline import RPCCCodec
 
 
 @pytest.fixture(scope="module")
 def codec_and_frame():
-    from rpcc_tpu.data.pointcloud_io import load_point_cloud
+    from rpcc.data.synthetic import synthetic_frames
 
     lidar = LidarConfig.from_yaml(__lidar_cfg__["Velodyne64E"], name="Velodyne64E")
-    # The f32 goldens pin their exact config: the shipped default flipped to
-    # the benched flagship (m8 transfer) in r4, which snaps depths to the
-    # u16 grid before quantizing — a different (pinned separately below),
-    # equally deterministic bitstream.
+    # The f32 goldens pin their exact config: the shipped default is the
+    # flagship (m8 transfer), which snaps depths to the u16 grid before
+    # quantizing — a different (pinned separately below), equally
+    # deterministic bitstream.
     cfg = CodecConfig(transfer_precision="f32", device_entropy=False)
-    return RPCCCodec(lidar, cfg), load_point_cloud(EXAMPLE)
+    return RPCCCodec(lidar, cfg), synthetic_frames(lidar, 1, seed=0)[0]
 
 
 # Pinned operating points (uniform/point/FPS, acc 0.02, seed 0) on the
-# KITTI example frame, CPU backend: the default config (rans) and the
+# seeded 64E frame, CPU backend: the default config (rans) and the
 # reference-parity entropy coder (bzip2).  BPP pins are ±5% regression
 # tripwires; SHAs pin the exact bitstreams.  When the algorithm legitimately
 # changes, update with a one-line justification:
-#  - 2026-08-16 r2 baseline: bzip2 bpp 3.1069, 36527 bytes (round-1 encoder).
-#  - 2026-08-16 r2: smallest_eigvec_3x3 unit-normalization fix shifted the
-#    ground plane by float ulps (bzip2 bpp 3.1072).
-#  - 2026-08-16 r2: ground subsample now draws a candidate pool instead of
-#    argsorting the whole grid (different random subset -> slightly
-#    different ground plane; bzip2 bpp 3.0803).
-#  - 2026-08-16 r2: default compressor flipped to rans (compact tables +
-#    wavefront contour coding): default bpp 2.8144.
-#  - 2026-08-16 r2: ground candidate pool is a random-phase strided lattice
-#    (random-index gathers cost 28ms/batch on TPU): rans bpp 2.8200.
-#  - 2026-08-16 r2: projection moved to the host production path (numpy f32
-#    binning + native scatter-min; backend-independent bitstreams, 3x
-#    smaller uploads).  Depths differ from the XLA in-graph path by FMA-
-#    contraction ulps: rans bpp 2.8205, bzip2 bpp 3.0981.
-#  - 2026-08-16 r2: idx_sequence container switched to zlib-9 over the u8
-#    view (beats bz2 32/32 frames, ~5% smaller, 5x faster): rans bpp 2.8078.
-#  - 2026-08-16 r2: host projection angles/depth now use the deterministic
-#    f64 kernels shared bit-for-bit by the numpy fallback and the fused
-#    native C++ kernel (projection.py::_atan2_det): rans bpp 2.8090,
-#    bzip2 bpp 3.0952.
-#  - 2026-08-17 r2: LIVE-AWARE rANS lanes (tail padding neither modeled nor
-#    coded — required so the fixed-shape on-device encoder matches host
-#    sizes): rans bpp 2.8081.
-#  - 2026-08-17 r3: idx_sequence zlib level 9 -> 6 (saves ~1 ms/frame of
-#    host time for +31 B on ~34 KB, +0.0006 bpp): rans bpp 2.8087.
-GOLDEN_BPP = 2.8087
-GOLDEN_SHA = "5892614a2d78c5fe97cc24967b1e58541667f97d0b6c1fbc706adbee5608a07e"
-GOLDEN_BZIP2_BPP = 3.0952
-GOLDEN_BZIP2_SHA = "146cd8ff37c8d94e2bb988fb3ca5c14689423a6ff59d5b9c2a7645aa4b4142d3"
-#  - 2026-08-18 r4: the DEFAULT config is now the benched flagship
-#    (transfer_precision='m8', device_entropy=True).  Its bitstream is the
-#    u16-snap-grid operating point (bit-identical across u16/i8/m8 and
-#    across the single-frame/engine/mesh paths — test_m8_transfer.py,
-#    test_engine.py), pinned here on the same KITTI frame.
-GOLDEN_FLAGSHIP_BPP = 2.8082
-GOLDEN_FLAGSHIP_SHA = "da42ed69ef07d5f8f25c71f90ff21c09c28721d58aef3bae2fab4d58be4d13e4"
+#  - The pins were taken on a KITTI example frame until that frame left the
+#    repo's inputs; they moved to the seeded frame with no codec change
+#    (rans 1.5250 bpp, bzip2 1.3325, flagship 1.5286).
+GOLDEN_BPP = 1.5250
+GOLDEN_SHA = "f0007961808d73cf45e12d4b8ce86cc89b5dabfa7c3a62a8d63c856c8584ea26"
+GOLDEN_BZIP2_BPP = 1.3325
+GOLDEN_BZIP2_SHA = "0a86d7903dd264b37b1e83b6ee304a643081b25769bf06fc816c44d6d1eb2c95"
+# The DEFAULT config is the flagship (transfer_precision='m8',
+# device_entropy=True).  Its bitstream is the u16-snap-grid operating point
+# (bit-identical across u16/i8/m8 and across the single-frame/engine/mesh
+# paths — test_m8_transfer.py, test_engine.py), pinned on the same frame.
+GOLDEN_FLAGSHIP_BPP = 1.5286
+GOLDEN_FLAGSHIP_SHA = "2e4aa367e5ad4f51ab4d92a9a8d9928994167b89e070c9d4c6a0554ce3e3d38f"
 
 
-def test_kitti_example_operating_point(codec_and_frame):
+def test_seeded_frame_operating_point(codec_and_frame):
     codec, pc = codec_and_frame
     blob, fields, _ = codec.compress(pc)
     ri = np.asarray(codec.encode_device(pc).range_image)
@@ -99,9 +71,9 @@ def test_kitti_example_operating_point(codec_and_frame):
     assert (ri_rec[ri == 0] == 0).all()
 
 
-def test_kitti_example_bzip2_operating_point(codec_and_frame):
+def test_seeded_frame_bzip2_operating_point(codec_and_frame):
     _, pc = codec_and_frame
-    from rpcc_tpu.data import __lidar_cfg__ as _cfgs
+    from rpcc.data import __lidar_cfg__ as _cfgs
 
     lidar = LidarConfig.from_yaml(_cfgs["Velodyne64E"], name="Velodyne64E")
     codec = RPCCCodec(
@@ -117,13 +89,13 @@ def test_kitti_example_bzip2_operating_point(codec_and_frame):
     assert hashlib.sha256(blob).hexdigest() == GOLDEN_BZIP2_SHA
 
 
-def test_kitti_example_flagship_default_operating_point(codec_and_frame):
-    """The bare CodecConfig() — what a user gets — is the benched flagship
+def test_seeded_frame_flagship_default_operating_point(codec_and_frame):
+    """The bare CodecConfig() — what a user gets — is the flagship
     (m8 transfer + device entropy) and its bitstream is pinned."""
     _, pc = codec_and_frame
     cfg = CodecConfig()
     assert cfg.transfer_precision == "m8" and cfg.device_entropy, (
-        "shipped defaults must be the benched flagship config"
+        "shipped defaults must be the flagship config"
     )
     lidar = LidarConfig.from_yaml(__lidar_cfg__["Velodyne64E"], name="Velodyne64E")
     codec = RPCCCodec(lidar, cfg)
@@ -141,7 +113,7 @@ def test_kitti_example_flagship_default_operating_point(codec_and_frame):
     assert (ri_rec[ri == 0] == 0).all()
 
 
-def test_kitti_example_bitstream_deterministic(codec_and_frame):
+def test_seeded_frame_bitstream_deterministic(codec_and_frame):
     codec, pc = codec_and_frame
     h = []
     for _ in range(2):

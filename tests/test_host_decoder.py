@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from rpcc_tpu.config import CodecConfig
-from rpcc_tpu.models.host_decoder import HostDecoder, _decode_frame_np
-from rpcc_tpu.parallel import BatchEngine
+from rpcc.config import CodecConfig
+from rpcc.models.host_decoder import HostDecoder, _decode_frame_np
+from rpcc.parallel import BatchEngine
 
 from tests.test_roundtrip import SMALL, synth_scene
 
@@ -158,8 +158,8 @@ def test_malformed_exception_lists_native_matches_numpy():
     past the grid) must decode identically on the native kernel and the
     numpy twin, and never write out of bounds (the unguarded walk wrote one
     float past the buffer per zero entry)."""
-    from rpcc_tpu.codec.lz4block import native_lib
-    from rpcc_tpu.models.host_decoder import (
+    from rpcc.codec.lz4block import native_lib
+    from rpcc.models.host_decoder import (
         d8_reconstruct_batch,
         m8_reconstruct_batch,
     )
@@ -174,8 +174,8 @@ def test_malformed_exception_lists_native_matches_numpy():
         nat = d8_reconstruct_batch(d8, pd, val, n_exc, delta)
         if native_lib() is None:
             return nat, nat
-        import rpcc_tpu.models.host_decoder as hd_mod
-        import rpcc_tpu.codec.lz4block as lz
+        import rpcc.models.host_decoder as hd_mod
+        import rpcc.codec.lz4block as lz
 
         orig = lz.native_lib
         lz.native_lib = lambda: None
@@ -211,7 +211,7 @@ def test_malformed_exception_lists_native_matches_numpy():
             H, W)
     nat = m8_reconstruct_batch(*args)
     if native_lib() is not None:
-        import rpcc_tpu.codec.lz4block as lz
+        import rpcc.codec.lz4block as lz
 
         orig = lz.native_lib
         lz.native_lib = lambda: None
@@ -258,7 +258,7 @@ def test_engine_points_match_host_backend_f32():
 
 def test_engine_points4_native_matches_numpy_twin():
     """decode.cpp::backproject_compact == the numpy fallback, bit for bit."""
-    from rpcc_tpu.codec.lz4block import native_lib
+    from rpcc.codec.lz4block import native_lib
 
     cfg = CodecConfig(cluster_num=16)
     engine = BatchEngine(SMALL, cfg, batch_size=1, workers=2)

@@ -12,8 +12,8 @@ import numpy as np
 import jax
 import pytest
 
-from rpcc_tpu.config import LidarConfig
-from rpcc_tpu.ops.projection import (
+from rpcc.config import LidarConfig
+from rpcc.ops.projection import (
     bin_points_host,
     project_points,
     project_points_host,
@@ -41,7 +41,7 @@ def test_host_raster_matches_loop_oracle_native_and_numpy(monkeypatch):
     got_native = raster_range_image_host(depth, idx, SMALL.height, SMALL.width)
     assert (got_native == want).all()
     # numpy fallback (no native library): same bytes, incl. tie handling
-    import rpcc_tpu.codec.lz4block as lz4block
+    import rpcc.codec.lz4block as lz4block
 
     monkeypatch.setattr(lz4block, "native_lib", lambda: None)
     got_np = raster_range_image_host(depth, idx, SMALL.height, SMALL.width)
@@ -61,7 +61,7 @@ def test_fused_native_projection_bit_identical_to_numpy(monkeypatch):
     """The fused C++ kernel and the numpy fallback must agree on every BIT:
     both evaluate the same deterministic atan2/sqrt sequence (see
     projection.py::_ATAN_COEFFS)."""
-    import rpcc_tpu.codec.lz4block as lz4block
+    import rpcc.codec.lz4block as lz4block
 
     if lz4block.native_lib() is None or not hasattr(
         lz4block.native_lib(), "project_bin_raster"
@@ -102,8 +102,8 @@ def test_fused_native_projection_bit_identical_to_numpy(monkeypatch):
 
 
 def test_u16_projection_native_matches_numpy_and_bounds():
-    from rpcc_tpu.ops.projection import project_points_host_u16
-    import rpcc_tpu.codec.lz4block as lz4block
+    from rpcc.ops.projection import project_points_host_u16
+    import rpcc.codec.lz4block as lz4block
 
     pc = synth_scene(seed=4)
     floor = np.float32(0.04 / 16.0)
@@ -142,8 +142,8 @@ def test_host_binning_matches_device_binning():
     pc = synth_scene(seed=5)
     import jax.numpy as jnp
 
-    from rpcc_tpu.ops.projection import _TWO_PI_REF
-    from rpcc_tpu.ops.rounding import round_half_away
+    from rpcc.ops.projection import _TWO_PI_REF
+    from rpcc.ops.rounding import round_half_away
 
     H, W = SMALL.height, SMALL.width
 

@@ -12,9 +12,9 @@ the u16-snap range image the d8/u16 downlinks produce.
 import numpy as np
 import pytest
 
-from rpcc_tpu.config import CodecConfig
-from rpcc_tpu.models.host_decoder import m8_reconstruct_batch
-from rpcc_tpu.parallel import BatchEngine
+from rpcc.config import CodecConfig
+from rpcc.models.host_decoder import m8_reconstruct_batch
+from rpcc.parallel import BatchEngine
 
 from tests.test_roundtrip import SMALL, synth_scene
 
@@ -62,7 +62,7 @@ def test_m8_reconstruct_native_matches_numpy(m8_engines, monkeypatch):
         e_m8.W,
     )
     native = m8_reconstruct_batch(*args)
-    import rpcc_tpu.codec.lz4block as lz4block
+    import rpcc.codec.lz4block as lz4block
 
     monkeypatch.setattr(lz4block, "native_lib", lambda: None)
     fallback = m8_reconstruct_batch(*args)

@@ -8,12 +8,12 @@ bitstreams are bit-identical to a 'u16' engine's on the same clouds/seeds.
 
 import numpy as np
 
-from rpcc_tpu.config import CodecConfig
-from rpcc_tpu.ops.projection import (
+from rpcc.config import CodecConfig
+from rpcc.ops.projection import (
     project_points_host_m8,
     project_points_host_u16,
 )
-from rpcc_tpu.parallel import BatchEngine
+from rpcc.parallel import BatchEngine
 
 from tests.test_roundtrip import SMALL, synth_scene
 
@@ -96,8 +96,8 @@ def test_m8_engine_device_entropy_combo():
 def test_m8_native_projection_matches_numpy(monkeypatch):
     """The fused C++ m8 projection (raster.cpp::project_bin_raster_m8) is
     bit-identical to the numpy path on every output."""
-    import rpcc_tpu.codec.lz4block as lz4block
-    from rpcc_tpu.codec.lz4block import native_lib
+    import rpcc.codec.lz4block as lz4block
+    from rpcc.codec.lz4block import native_lib
 
     lib = native_lib()
     if lib is None or not hasattr(lib, "project_bin_raster_m8"):

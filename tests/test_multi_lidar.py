@@ -4,9 +4,9 @@ VLP-16 range geometries, real registry configs, synthetic scenes."""
 import numpy as np
 import pytest
 
-from rpcc_tpu.config import CodecConfig, LidarConfig
-from rpcc_tpu.data import __lidar_cfg__
-from rpcc_tpu.models.pipeline import RPCCCodec
+from rpcc.config import CodecConfig, LidarConfig
+from rpcc.data import __lidar_cfg__
+from rpcc.models.pipeline import RPCCCodec
 
 
 def scene_for(lidar: LidarConfig, n=6000, seed=0):
@@ -30,7 +30,7 @@ def test_kitti_test_unofficial_64e_geometry():
     """The KITTI_test registry entry maps to the unofficial 80-row 64E
     yaml (reference dataset/__init__.py: 'KITTI_test' -> 64E-unofficial);
     the full pipeline must roundtrip on that geometry too."""
-    from rpcc_tpu.data import __dataset_cfg__
+    from rpcc.data import __dataset_cfg__
 
     lidar = LidarConfig.from_yaml(__dataset_cfg__["KITTI_test"], name="KITTI_test")
     assert lidar.height == 80

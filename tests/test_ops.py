@@ -4,16 +4,16 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from rpcc_tpu.ops.rounding import round_half_away
-from rpcc_tpu.ops.fps import furthest_point_sample
-from rpcc_tpu.ops.ransac import (
+from rpcc.ops.rounding import round_half_away
+from rpcc.ops.fps import furthest_point_sample
+from rpcc.ops.ransac import (
     compact_random_subset,
     fit_plane_weighted,
     point_plane_distance,
     ransac_plane,
 )
-from rpcc_tpu.ops.quantize import cluster_sort, dequantize_stream, quantize_stream
-from rpcc_tpu.ops.contour import extract_contour, recover_map
+from rpcc.ops.quantize import cluster_sort, dequantize_stream, quantize_stream
+from rpcc.ops.contour import extract_contour, recover_map
 
 
 # ---------------------------------------------------------------- rounding
@@ -176,7 +176,7 @@ def test_contour_roundtrip_random():
 
 
 def test_segment_index_clean_matches_inplace_cascade():
-    from rpcc_tpu.ops.segment import segment_index_clean
+    from rpcc.ops.segment import segment_index_clean
 
     rng = np.random.default_rng(9)
     seg = rng.integers(0, 5, (6, 40)).astype(np.int32)

@@ -2,7 +2,7 @@
 reference's composed pipeline (utils/compress_utils.py:138-229 + the C++
 quantize/predict/contour semantics).  See tests/reference_oracle.py.
 
-Guarantees (VERDICT r1 item 3):
+Guarantees:
  (a) given one fixed segmentation + model table + residual stream, our
      production host path and the oracle produce byte-identical .rpcc
      payloads (contour code, packbits, field dtypes, framing);
@@ -20,11 +20,12 @@ Guarantees (VERDICT r1 item 3):
 import numpy as np
 import pytest
 
-from rpcc_tpu.codec.bitstream import pack_bitstream
-from rpcc_tpu.config import CodecConfig, LidarConfig
-from rpcc_tpu.data import __lidar_cfg__
-from rpcc_tpu.models.pipeline import RPCCCodec
+from rpcc.codec.bitstream import pack_bitstream
+from rpcc.config import CodecConfig, LidarConfig
+from rpcc.data import __lidar_cfg__
+from rpcc.models.pipeline import RPCCCodec
 from tests import reference_oracle as oracle
+from tests.reference_oracle import assert_streams_agree
 from tests.test_roundtrip import SMALL, synth_scene
 
 
@@ -35,22 +36,6 @@ def enc_state():
     pc = synth_scene(seed=3)
     out = codec.encode_device(pc)
     return codec, out
-
-
-def assert_streams_agree(q_ours, q_oracle, residual_stream, step_stream, tol=1e-3):
-    """Quantized streams must be equal except off-by-one flips at slots whose
-    residual/step sits within ``tol`` of a .5 boundary (FMA/ulp artifacts)."""
-    q_ours = np.asarray(q_ours, np.int64)
-    q_oracle = np.asarray(q_oracle, np.int64)
-    assert q_ours.shape == q_oracle.shape
-    diff = np.nonzero(q_ours != q_oracle)[0]
-    if diff.size == 0:
-        return
-    assert np.abs(q_ours - q_oracle)[diff].max() <= 1
-    frac = residual_stream[diff] / step_stream[diff]
-    dist = np.abs(np.abs(frac - np.trunc(frac)) - 0.5)
-    assert dist.max() < tol, f"non-boundary quantizer disagreement at {diff[dist >= tol][:5]}"
-    assert diff.size <= max(2, int(0.005 * q_ours.size)), "too many boundary flips"
 
 
 def _oracle_streams(codec, out):
@@ -174,18 +159,13 @@ def test_nonuniform_parity_with_oracle():
     assert ours == oracle_blob
 
 
-def test_kitti_frame_byte_parity_with_oracle():
-    """The real 64x2000 KITTI frame through both host paths."""
-    import os
-
-    example = "/root/reference/assets/example_data/example.bin"
-    if not os.path.exists(example):
-        pytest.skip("example frame not available")
-    from rpcc_tpu.data.pointcloud_io import load_point_cloud
+def test_full_frame_byte_parity_with_oracle():
+    """The seeded full-size 64x2000 frame through both host paths."""
+    from rpcc.data.synthetic import synthetic_frames
 
     lidar = LidarConfig.from_yaml(__lidar_cfg__["Velodyne64E"], name="Velodyne64E")
     codec = RPCCCodec(lidar, CodecConfig(basic_compressor="bzip2"))
-    out = codec.encode_device(load_point_cloud(example))
+    out = codec.encode_device(synthetic_frames(lidar, 1, seed=0)[0])
     seg, ri, mp, residual, res_stream = _oracle_streams(codec, out)
     q_oracle = oracle.uniform_quantize(seg, residual, codec.cfg.step)
     fields = codec.fields_from_device(out)

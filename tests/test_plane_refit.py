@@ -4,17 +4,17 @@ ALL cluster inliers, scan-angle validation over ALL cluster pixels.
 
 plane_models_stream is driven directly with a hand-built segmentation so the
 cluster size is controlled: >1024 px exercises the full-stream refit beyond
-the hypothesis sample (VERDICT r1 item 7)."""
+the hypothesis sample."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from rpcc_tpu.config import CodecConfig, LidarConfig
-from rpcc_tpu.models.pipeline import RPCCCodec
-from rpcc_tpu.ops.modeling import plane_models_stream
-from rpcc_tpu.ops.projection import build_transform_planes
-from rpcc_tpu.ops.stream import stream_sort
+from rpcc.config import CodecConfig, LidarConfig
+from rpcc.models.pipeline import RPCCCodec
+from rpcc.ops.modeling import plane_models_stream
+from rpcc.ops.projection import build_transform_planes
+from rpcc.ops.stream import stream_sort
 from tests.test_roundtrip import SMALL
 
 BIG = LidarConfig(

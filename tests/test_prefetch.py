@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from rpcc_tpu.parallel.prefetch import prefetch_loaded_batches
+from rpcc.parallel.prefetch import prefetch_loaded_batches
 
 
 def test_order_batching_and_seeds():

@@ -8,8 +8,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from rpcc_tpu.config import LidarConfig
-from rpcc_tpu.ops.projection import (
+from rpcc.config import LidarConfig
+from rpcc.ops.projection import (
     build_transform_map,
     project_points,
     range_image_to_points,
@@ -158,8 +158,8 @@ def test_uneven_channel_projection_rows_by_nearest_angle():
 
 
 def test_uneven_roundtrip_through_codec():
-    from rpcc_tpu.config import CodecConfig
-    from rpcc_tpu.models.pipeline import RPCCCodec
+    from rpcc.config import CodecConfig
+    from rpcc.models.pipeline import RPCCCodec
 
     rng = np.random.default_rng(8)
     n = 4000

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from rpcc_tpu.ops.rans import (
+from rpcc.ops.rans import (
     RansCode,
     cumulative,
     decode_stream,
@@ -92,7 +92,7 @@ def test_empty_batch_decoders():
     """Empty blob batches return empty/None instead of indexing parsed[0]
     (an engine decode_blobs([]) used to reach an IndexError through
     peek_delta_ns([]) -> [] passing the 'is not None' gate)."""
-    from rpcc_tpu.codec import rans_codec as rc
+    from rpcc.codec import rans_codec as rc
 
     assert rc.peek_delta_ns([]) is None
     assert rc.decompress_delta_batch([]) == []
@@ -107,8 +107,8 @@ def test_native_and_jax_kernels_bit_identical():
     jax kernels, and each must decode the other's output."""
     import numpy as np
 
-    from rpcc_tpu.codec import rans_codec, rans_native
-    from rpcc_tpu.ops import rans as _r
+    from rpcc.codec import rans_codec, rans_native
+    from rpcc.ops import rans as _r
 
     if not rans_native.available():
         import pytest
@@ -147,7 +147,7 @@ def test_native_and_jax_kernels_bit_identical():
 def test_contour_container_backends_agree():
     import numpy as np
 
-    from rpcc_tpu.codec import rans_codec, rans_native
+    from rpcc.codec import rans_codec, rans_native
 
     if not rans_native.available():
         import pytest
@@ -175,8 +175,8 @@ def test_fused_native_delta_containers_byte_identical_and_fallback():
     """The fully-fused C++ delta encode (rans_delta_encode_frames) must emit
     byte-identical containers to the numpy+kernel path for every dtype, and
     fall back losslessly on escape-capacity overflow."""
-    from rpcc_tpu.codec import rans_codec as rc
-    from rpcc_tpu.codec import rans_native as rn
+    from rpcc.codec import rans_codec as rc
+    from rpcc.codec import rans_native as rn
     import pytest
 
     if not rn.fused_available():
@@ -206,8 +206,8 @@ def test_fused_native_delta_containers_byte_identical_and_fallback():
 
 
 def test_fused_native_contour_containers_byte_identical():
-    from rpcc_tpu.codec import rans_codec as rc
-    from rpcc_tpu.codec import rans_native as rn
+    from rpcc.codec import rans_codec as rc
+    from rpcc.codec import rans_native as rn
     import pytest
 
     if not rn.fused_available():
@@ -232,7 +232,7 @@ def test_fused_native_contour_containers_byte_identical():
 def test_mixed_lane_batch_decodes():
     """A tiny frame next to a full frame gets a group-local lane count; the
     batch decoder must handle the mixed-lane batch (sub-batch regrouping)."""
-    from rpcc_tpu.codec import rans_codec as rc
+    from rpcc.codec import rans_codec as rc
 
     rng = np.random.default_rng(3)
     tiny = np.asarray([123, 124, 120], np.int16)
@@ -252,7 +252,7 @@ def test_corrupt_escape_list_raises():
 
     import pytest
 
-    from rpcc_tpu.codec import rans_codec as rc
+    from rpcc.codec import rans_codec as rc
 
     rng = np.random.default_rng(5)
     # mostly-small deltas with a sprinkle of table-range overshoots: real
@@ -282,8 +282,8 @@ def test_normalize_freqs_pathological_repair():
     correction (255 symbols x 513 + 257 singletons -> f[top] would go to
     -129).  The repair pass must produce a valid table (present >= 1, sum
     == M) identically in the numpy and jax implementations."""
-    from rpcc_tpu.codec import rans_native as rn
-    from rpcc_tpu.ops import rans as _rj
+    from rpcc.codec import rans_native as rn
+    from rpcc.ops import rans as _rj
 
     counts = np.zeros(512, np.int64)
     counts[:255] = 513
@@ -307,7 +307,7 @@ def test_int32_wide_escape_routes_to_lossless_bz2():
     delta containers (escape values are u32 on the wire) — they must route
     to a plain-bz2 container and roundtrip losslessly instead of silently
     truncating."""
-    from rpcc_tpu.codec import rans_codec as rc
+    from rpcc.codec import rans_codec as rc
 
     wild = np.asarray([-(2**31), 2**31 - 1, 0, -(2**31), 5], np.int32)
     blob = rc.compress_delta_batch([wild])[0]
@@ -332,7 +332,7 @@ def test_corrupt_container_headers_raise():
 
     import pytest
 
-    from rpcc_tpu.codec import rans_codec as rc
+    from rpcc.codec import rans_codec as rc
 
     # contour: shrink the claimed T below H+W-1 (build the 'N' container
     # directly — compress_contour may adaptively pick bz2 for this content)
@@ -354,7 +354,7 @@ def test_corrupt_container_headers_raise():
             rc.decompress_delta_batch([bytes(dbuf)])
 
     # fused encoder refuses frames larger than its lanes*T buffers
-    from rpcc_tpu.codec import rans_native as rn
+    from rpcc.codec import rans_native as rn
 
     if rn.fused_available():
         with pytest.raises(ValueError, match="exceeds lanes"):
@@ -369,7 +369,7 @@ def test_corrupt_lane_count_raises():
 
     import pytest
 
-    from rpcc_tpu.codec import rans_codec as rc
+    from rpcc.codec import rans_codec as rc
 
     data = np.cumsum(np.random.default_rng(4).integers(-3, 4, 40000)).astype(np.int16)
     blob = rc.compress_delta_batch([data])[0]
@@ -390,7 +390,7 @@ def test_recip_from_freq_exhaustive():
     import jax
     import jax.numpy as jnp
 
-    from rpcc_tpu.ops.rans_device import _RECIP_NP, recip_from_freq
+    from rpcc.ops.rans_device import _RECIP_NP, recip_from_freq
 
     f = jnp.arange(_RECIP_NP.size, dtype=jnp.uint32)  # 0..16384 inclusive
     got = np.asarray(jax.jit(recip_from_freq)(f))

@@ -9,8 +9,8 @@ origin and are dropped on save.
 import numpy as np
 import pytest
 
-from rpcc_tpu.config import CodecConfig, LidarConfig
-from rpcc_tpu.models.pipeline import RPCCCodec
+from rpcc.config import CodecConfig, LidarConfig
+from rpcc.models.pipeline import RPCCCodec
 
 SMALL = LidarConfig(
     name="small64",

@@ -1,12 +1,14 @@
 """Unit tests for the stream-space engine (ops/stream.py)."""
 
-import numpy as np
+import jax
 import jax.numpy as jnp
+import numpy as np
 
-from rpcc_tpu.ops.quantize import cluster_sort
-from rpcc_tpu.ops.stream import (
+from rpcc.ops.quantize import cluster_sort
+from rpcc.ops.stream import (
     compact_flagged,
     expand_per_cluster,
+    materialized_cumsum,
     per_cluster_sums,
     point_means_stream,
     stream_sort,
@@ -80,3 +82,32 @@ def test_compact_flagged():
     comp, n = compact_flagged(jnp.asarray(flags), jnp.asarray(vals))
     n = int(n)
     np.testing.assert_array_equal(np.asarray(comp)[:n], vals[flags == 1])
+
+
+def _count_prims(jaxpr, name: str) -> int:
+    n = 0
+    for eqn in jaxpr.eqns:
+        n += eqn.primitive.name == name
+        for sub in jax.core.jaxprs_in_params(eqn.params):
+            n += _count_prims(sub, name)
+    return n
+
+
+def test_plane_model_cumsums_are_materialized():
+    """Every cumsum of the plane fit is written out before it is gathered:
+    fused into its small consumers, XLA:GPU re-evaluates the scan per read
+    element, O(HW^2) for the nested refit/validation sums."""
+    from rpcc.ops.modeling import plane_models_stream
+
+    seg, rng = make_seg(seed=5)
+    num_models = 12
+    ri = rng.uniform(2, 50, seg.shape[0]).astype(np.float32)
+    order, (ri_s,) = stream_sort(jnp.asarray(seg), [jnp.asarray(ri)], num_models)
+    rays = tuple(jnp.full(seg.shape, v, jnp.float32) for v in (0.6, 0.0, 0.8))
+    fn = lambda r: plane_models_stream(r, order, jax.random.PRNGKey(0), num_models, 60.0, rays)
+    jaxpr = jax.make_jaxpr(fn)(ri_s).jaxpr
+    cumsums = _count_prims(jaxpr, "cumsum")
+    assert cumsums > 0
+    assert _count_prims(jaxpr, "optimization_barrier") == cumsums
+    got = np.asarray(materialized_cumsum(jnp.asarray(ri)))
+    np.testing.assert_array_equal(got, np.asarray(jnp.cumsum(jnp.asarray(ri))))

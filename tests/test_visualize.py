@@ -6,7 +6,7 @@ import os
 
 import numpy as np
 
-from rpcc_tpu.utils import visualize as viz
+from rpcc.utils import visualize as viz
 
 
 def test_renderers_produce_files(tmp_path):
@@ -32,6 +32,6 @@ def test_renderers_produce_files(tmp_path):
 
     pcd = str(tmp_path / "c.pcd")
     viz.save_point_cloud_to_pcd(pc1, pcd)
-    from rpcc_tpu.data.pointcloud_io import _read_pcd
+    from rpcc.data.pointcloud_io import _read_pcd
 
     assert np.array_equal(_read_pcd(pcd).astype(np.float32), pc1)
